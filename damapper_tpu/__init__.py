@@ -1,7 +1,7 @@
-"""damapper_tpu — a TPU-native long-read mapping framework.
+"""damapper_tpu — a long-read mapper on accelerators, in JAX.
 
 A from-scratch reimplementation of the capabilities of Gene Myers' DAMAPPER
-(reference: thegenemyers/DAMAPPER) designed TPU-first:
+(reference: thegenemyers/DAMAPPER):
 
   * data plane      — DAZZ .db/.dam/.las codecs -> columnar numpy/JAX arrays
                       (damapper_tpu.io, parity with reference DB.c / align.c I/O)
@@ -9,7 +9,8 @@ A from-scratch reimplementation of the capabilities of Gene Myers' DAMAPPER
   * seed matching   — sort-merge intersection (damapper_tpu.ops.seeds)
   * chaining        — sweep chain DP (damapper_tpu.ops.chain, native C++ fast path)
   * wave alignment  — O(nd) trace-point wave (damapper_tpu.ops.wave oracle,
-                      damapper_tpu.ops.wave_jax batched TPU path)
+                      damapper_tpu.ops.wave_kernel CUDA kernel and its
+                      host build)
   * reporting       — LA fusion/chain-graph/zone selection + .las emission
                       (damapper_tpu.pipeline.reporter)
   * distribution    — jax.sharding mesh plans replacing HPC.damapper scripts
@@ -27,13 +28,7 @@ import os as _os
 # preloaded by site hooks, so the NUMPY_MADVISE_HUGEPAGE env var set here
 # would be read too late).  NUMPY_MADVISE_HUGEPAGE=1 restores the hint.
 if _os.environ.get("NUMPY_MADVISE_HUGEPAGE") != "1":
-    try:
-        try:
-            from numpy._core import multiarray as _ma
-        except ImportError:  # numpy < 2
-            from numpy.core import multiarray as _ma
-        _ma._set_madvise_hugepage(False)
-    except Exception:
-        pass
+    from numpy._core import multiarray as _ma
+    _ma._set_madvise_hugepage(False)
 
 __version__ = "0.1.0"

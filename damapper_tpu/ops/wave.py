@@ -3,8 +3,9 @@
 Semantics-parity reimplementation of the reference's adaptive furthest-reaching
 wave (forward_wave align.c:353-1011, reverse_wave align.c:1015-1720,
 Local_Alignment align.c:1727-1946).  This pure-Python version is the
-correctness oracle for the batched TPU kernel (damapper_tpu.ops.wave_jax) and
-is used by the golden end-to-end tests; it is NOT the production compute path.
+correctness oracle for the batched device engines (ops.wave_kernel,
+ops.wave_jax) and is used by the golden end-to-end tests;
+it is NOT the production compute path.
 
 Algorithm recap: from a seed point (anti, diag in [low,hgh]) extend a banded
 wave of furthest-reaching points forward and backward.  Per diagonal keep the

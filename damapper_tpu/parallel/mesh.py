@@ -3,7 +3,7 @@
 The reference scales three ways (SURVEY.md §2.2): pthreads inside a process,
 reference-block streaming against a resident reads index, and cluster-level
 data parallelism over read blocks via generated shell scripts
-(HPC.damapper.c).  The TPU-native equivalents, wired into the REAL pipeline
+(HPC.damapper.c).  The device equivalents, wired into the REAL pipeline
 (pipeline.mapper.run_damapper):
 
   * axis "dp"  — read/seed data parallelism (the reference's thread + cluster
@@ -13,7 +13,7 @@ data parallelism over read blocks via generated shell scripts
   * axis "ref" — reference k-mer index sharding (the memory axis of the
                  reference's block streaming, damapper.c:835-864): each
                  device owns a contiguous slice of the sorted reference
-                 index; per-group hit totals merge with a psum over ICI
+                 index; per-group hit totals merge with a psum across devices
                  (ops.device_index.device_match_seeds_sharded) instead of the
                  coff-cache accumulation (map.c:2874-2888).
 

@@ -1,4 +1,4 @@
-"""Execution-plan generator: HPC.damapper equivalent for TPU pod slices.
+"""Execution-plan generator: HPC.damapper equivalent for GPU hosts.
 
 The reference emits a shell script of embarrassingly-parallel damapper
 commands over read-block ranges plus an LAcheck house-keeping block
@@ -7,10 +7,10 @@ resume semantics (block fblock-1's .las must exist, fblock's must not,
 HPC.damapper.c:289-357).
 
 `generate_plan` reproduces that contract for this framework: each job maps -B
-read blocks on one host (each host drives its own TPU chip(s); within a job
-the work is data-parallel over the device mesh, damapper_tpu.parallel.mesh).
+read blocks on one host (each host drives its own GPUs; within a job the
+work is data-parallel over the device mesh, damapper_tpu.parallel.mesh).
 Output is either the classic shell script (`fmt="sh"`) or a machine-readable
-JSON pod-slice schedule (`fmt="json"`) binding jobs to host ranks.
+JSON cluster schedule (`fmt="json"`) binding jobs to host ranks.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ from ..ops.chain import ChainState
 from ..ops.kmers import sort_kmers, sort_kmers_partitioned
 from ..ops.seeds import match_seeds, match_seeds_multi
 from ..ops.spec import new_align_spec
+from ..utils.memory import device_share, physical_memory
 from .reporter import Reporter
 
 
@@ -37,49 +38,35 @@ def _auto_mesh():
     blocks, so cross-rank collectives would deadlock.  DAMAPPER_COOP=1
     (set by `launch --global-index`) opts into the cooperative global mesh
     whose "ref" axis shards the index across the hosts."""
-    try:
-        import jax
-        coop = os.environ.get("DAMAPPER_COOP") == "1"
-        devs = jax.devices() if coop else jax.local_devices()
-        if len(devs) > 1:
-            from ..parallel.mesh import make_mesh
-            return make_mesh(len(devs), devices=devs)
-    except Exception:
-        pass
+    import jax
+    coop = os.environ.get("DAMAPPER_COOP") == "1"
+    devs = jax.devices() if coop else jax.local_devices()
+    if len(devs) > 1:
+        from ..parallel.mesh import make_mesh
+        return make_mesh(len(devs), devices=devs)
     return None
 
 
+def _platform() -> str:
+    import jax
+    plat = jax.devices()[0].platform
+    if plat not in ("cpu", "gpu"):
+        raise RuntimeError(f"unsupported JAX platform {plat!r}")
+    return plat
+
+
 def _auto_backend() -> str:
-    """Pick the wave backend: the pallas segment engine when an accelerator
-    is attached, the host oracle otherwise.  Override with DAMAPPER_WAVE
-    (oracle | jax | pallas)."""
-    try:
-        import jax
-        if jax.devices()[0].platform != "cpu":
-            return "pallas"
-    except Exception:
-        pass
-    return "oracle"
+    """Pick the wave backend: the device engine on a GPU (the wave kernel),
+    the host oracle on the CPU.  Override with DAMAPPER_WAVE
+    (oracle | jax | device)."""
+    return "device" if _platform() == "gpu" else "oracle"
 
 
 def _auto_index() -> str:
-    """Pick the index/matching backend: device (ops.device_index) when an
-    accelerator is attached, host C++/numpy otherwise.  Override with
-    DAMAPPER_INDEX (host | device)."""
-    try:
-        import jax
-        if jax.devices()[0].platform != "cpu":
-            return "device"
-    except Exception:
-        pass
-    return "host"
-
-
-def _physical_memory() -> int:
-    try:
-        return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    except (ValueError, OSError):
-        return 16 << 30
+    """Pick the index/matching backend: device (ops.device_index) on a GPU,
+    host C++/numpy on the CPU.  Override with DAMAPPER_INDEX
+    (host | device)."""
+    return "device" if _platform() == "gpu" else "host"
 
 
 def read_block(path: str, masks: list[str], kmer: int) -> dbio.DazzDB:
@@ -108,7 +95,7 @@ class DamapperConfig:
                  chain_backend=None):
         self.kmer = kmer
         self.suppress = suppress
-        self.mem_limit = _physical_memory() if mem_limit is None else mem_limit
+        self.mem_limit = physical_memory() if mem_limit is None else mem_limit
         self.ave_error = ave_error
         self.spacing = spacing
         self.best_tie = best_tie
@@ -126,9 +113,8 @@ class DamapperConfig:
         self.index_backend = index_backend
         if chain_backend is None:
             # host by default everywhere: the native sweep is ~linear in
-            # hits and measured orders of magnitude faster than the batched
-            # XLA sweep at real hit densities (12Mb/200rd: 0.01s vs 1.5s);
-            # the device sweep exists for scale-out and is parity-tested
+            # hits and never the hot stage; the device sweep exists for
+            # scale-out and is parity-tested
             chain_backend = os.environ.get("DAMAPPER_CHAIN", "host")
         self.chain_backend = chain_backend
         self.mesh = mesh
@@ -139,11 +125,11 @@ class DamapperConfig:
 # layout, HPC.damapper.c job loop) rebuilds the SAME ref-block index each
 # call.  Keyed by (block file path, mtime, k, -t, masks); single-device
 # path only (the sharded index is mesh-bound).  Bounded by total payload
-# bytes — DAMAPPER_REFCACHE=0 disables; the byte budget is
-# DAMAPPER_REFCACHE_MB (default 2600: a 140Mb-block index is ~1.8G and
-# caches; a full 260Mb block's ~3.2G does not, because during the NEXT
-# block's build the cached entry would coexist with the new index AND the
-# join temps — ~13G+, too close to a 15.75G-HBM chip's ceiling).
+# bytes — DAMAPPER_REFCACHE=0 disables.  The budget is REFCACHE_SHARE of
+# device memory: while the NEXT block builds, a cached entry coexists with
+# the new index AND the join temps (about 4x an index), so a larger cache
+# would crowd them out.
+REFCACHE_SHARE = 0.16
 _ref_index_cache: dict = {}
 _ref_index_cache_bytes = [0]
 
@@ -165,7 +151,7 @@ def _ref_cache_put(key, aindex):
     if aindex.rlens is not None:
         arrs.append(aindex.rlens)
     nbytes = sum(int(np.prod(a.shape)) * a.dtype.itemsize for a in arrs)
-    budget = int(os.environ.get("DAMAPPER_REFCACHE_MB", "2600")) << 20
+    budget = device_share(REFCACHE_SHARE)
     if nbytes > budget:
         return
     while _ref_index_cache and _ref_index_cache_bytes[0] + nbytes > budget:
@@ -401,15 +387,15 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                               [], cfg.kmer)
 
     engine = None
-    if cfg.wave_backend in ("jax", "pallas"):
+    if cfg.wave_backend in ("jax", "device"):
         # on a mesh spanning processes (multi-host index sharding) the wave
         # stays process-local: host stages are replicated per rank, so lane
         # batches are identical everywhere and dp-sharding them across hosts
         # would only add DCN traffic for work every rank still consumes
         wave_mesh = None if multiproc else mesh
-        if cfg.wave_backend == "pallas":
-            from ..ops.wave_pallas import PallasWaveEngine
-            engine = PallasWaveEngine(spec, mesh=wave_mesh)
+        if cfg.wave_backend == "device":
+            from ..ops.wave_kernel import KernelWaveEngine
+            engine = KernelWaveEngine(spec, mesh=wave_mesh)
         else:
             from ..ops.wave_jax import WaveEngine
             engine = WaveEngine(spec, mesh=wave_mesh)
@@ -426,12 +412,12 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
             f"{k}={v:.2f}" for k, v in times.items()), file=sys.stderr)
         if engine is not None:
             # wave-engine telemetry: a silent drift to the host-oracle
-            # fallback would destroy TPU perf while keeping output identical
+            # fallback would destroy device perf while keeping output
+            # identical
             ndev = engine.n_total - engine.n_fallback - engine.n_hostmin
             print(f"      wave lanes: {engine.n_total:,} total, "
                   f"{ndev:,} device, {engine.n_fallback:,} overflow-fallback, "
-                  f"{engine.n_hostmin:,} tiny-round host, "
-                  f"{getattr(engine, 'n_winmiss', 0):,} window-miss retries",
+                  f"{engine.n_hostmin:,} tiny-round host",
                   file=sys.stderr)
 
     # multi-host cooperative mode: all ranks computed identical records;
@@ -475,7 +461,7 @@ def run_damapper(ref_path: str, reads_path: str, cfg: DamapperConfig,
                       cell_updates=(getattr(engine, "total_waves", 0)
                                     * getattr(engine, "W", 0)),
                       n_fallback=getattr(engine, "n_fallback", 0),
-                      n_winmiss=getattr(engine, "n_winmiss", 0),
+                      n_hostmin=getattr(engine, "n_hostmin", 0),
                       n_lanes=getattr(engine, "n_total", 0),
                       # align-stage split: device kernel+pull wall vs the
                       # host side (trace extraction, refinement, fallback)

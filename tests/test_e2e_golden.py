@@ -104,7 +104,7 @@ def test_e2e_jax_wave_backend(tmp_path):
     """The batched device wave engine must reproduce the reference .las too.
 
     Dataset kept small: the vmapped wave runs lockstep lanes, which the CPU
-    test backend executes serially (the TPU is the real target)."""
+    test backend executes serially."""
     (tmp_path / "ours").mkdir()
     make_dataset(tmp_path, seed=7, glen=24_000, ncontigs=2, nreads=6,
                  bsize=14_000, max_len=3500)
@@ -156,13 +156,13 @@ def test_e2e_profile_track(tmp_path):
 
 
 def test_e2e_pallas_wave_backend(tmp_path):
-    """The pallas segment engine must reproduce the reference .las
-    (runs the identical segment code under XLA on the CPU test mesh)."""
+    """The device wave engine must reproduce the reference .las (on the
+    CPU test mesh it is the wave kernel's host build)."""
     (tmp_path / "ours").mkdir()
     make_dataset(tmp_path, seed=23, glen=24_000, ncontigs=2, nreads=6,
                  bsize=14_000, max_len=3500)
     grecs, orecs = run_both(tmp_path, ["-k20", "-T4"],
-                            DamapperConfig(wave_backend="pallas"))
+                            DamapperConfig(wave_backend="device"))
     assert len(grecs) > 0
     d = diff_las(grecs, orecs)
     assert not d, d
@@ -203,24 +203,8 @@ def test_e2e_chimeric_reads(tmp_path):
     assert not d, d
 
 
-def test_e2e_persistent_wave_backend(tmp_path, monkeypatch):
-    """The persistent wave driver (reload loop inside the kernel) through
-    the FULL mapper must reproduce the reference .las (XLA twin on the
-    CPU test mesh; the Mosaic lowering is covered by the interpret test
-    in test_wave_jax)."""
-    monkeypatch.setenv("DAMAPPER_WAVE_PERSISTENT", "1")
-    (tmp_path / "ours").mkdir()
-    make_dataset(tmp_path, seed=23, glen=24_000, ncontigs=2, nreads=6,
-                 bsize=14_000, max_len=3500)
-    grecs, orecs = run_both(tmp_path, ["-k20", "-T4"],
-                            DamapperConfig(wave_backend="pallas"))
-    assert len(grecs) > 0
-    d = diff_las(grecs, orecs)
-    assert not d, d
-
-
 def test_e2e_device_index_backend(tmp_path):
-    """The device index/matching path (ops.device_index, default on TPU)
+    """The device index/matching path (ops.device_index, default on a GPU)
     must reproduce the reference .las end to end."""
     (tmp_path / "ours").mkdir()
     make_dataset(tmp_path, seed=29, glen=60_000, ncontigs=2, nreads=10,
@@ -233,7 +217,7 @@ def test_e2e_device_index_backend(tmp_path):
 
 
 def test_e2e_device_chain_backend(tmp_path):
-    """The batched XLA chain DP (ops.chain_jax, default on TPU) must
+    """The batched XLA chain DP (ops.chain_jax, DAMAPPER_CHAIN=device) must
     reproduce the reference .las end to end."""
     (tmp_path / "ours").mkdir()
     make_dataset(tmp_path, seed=37, glen=60_000, ncontigs=2, nreads=10,

@@ -114,123 +114,35 @@ def test_wave_jax_boundary_reach():
         assert list(eb.trace) == list(gb.trace)
 
 
-@pytest.mark.parametrize("seed,err,lanepack", [(0, 0.15, False),
-                                               (3, 0.30, False),
-                                               (0, 0.15, True),
-                                               (3, 0.30, True)])
-def test_wave_pallas_matches_oracle(seed, err, lanepack):
-    """The segment-driver engine (pallas on TPU, identical XLA path on CPU)
-    must reproduce the oracle exactly, like the while-loop engine.
-    lanepack=True runs the two-lanes-per-vreg-row segment layout."""
-    from damapper_tpu.ops.wave_pallas import PallasWaveEngine
+def assert_matches_oracle(eng, seqmem, insts, spec):
+    """Run `insts` through `eng` and require every lane to equal the host
+    oracle: coordinates, diffs and both trace-point lists."""
+    dev = jnp.asarray(seqmem)
+    got = eng.local_alignment_batch(dev, dev, seqmem, seqmem, insts)
+    for i, s in enumerate(insts):
+        a_np = seqmem[s["abase"]:s["abase"] + s["alen"]]
+        b_np = seqmem[s["bbase"]:s["bbase"] + s["blen"]]
+        ea, eb = wave.local_alignment(a_np, b_np, spec, s["diag"], s["diag"],
+                                      s["anti"], -1, -1, s["flags"])
+        ga, gb = got[i]
+        assert (ea.abpos, ea.bbpos, ea.aepos, ea.bepos, ea.diffs) == \
+               (ga.abpos, ga.bbpos, ga.aepos, ga.bepos, ga.diffs), f"case {i}"
+        assert list(ea.trace) == list(ga.trace), f"case {i} A trace"
+        assert list(eb.trace) == list(gb.trace), f"case {i} B trace"
+    return got
+
+
+@pytest.mark.parametrize("seed,err", [(0, 0.15), (3, 0.30), (1, 0.05),
+                                      (2, 0.15), (4, 0.30)])
+def test_wave_pallas_matches_oracle(seed, err):
+    """The device engine (the wave kernel; here its host build) at band 64
+    must reproduce the oracle exactly, like the while-loop engine."""
+    from damapper_tpu.ops.wave_kernel import KernelWaveEngine
 
     seqmem, insts = make_cases(1000 + seed, ncases=4, err=err)
     spec = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
-    eng = PallasWaveEngine(spec, band_cap=64, pool_cap=2048,
-                           lanepack=lanepack)
-    dev = jnp.asarray(seqmem)
-    got = eng.local_alignment_batch(dev, dev, seqmem, seqmem, insts)
-    for i, s in enumerate(insts):
-        a_np = seqmem[s["abase"]:s["abase"] + s["alen"]]
-        b_np = seqmem[s["bbase"]:s["bbase"] + s["blen"]]
-        ea, eb = wave.local_alignment(a_np, b_np, spec, s["diag"], s["diag"],
-                                      s["anti"], -1, -1, s["flags"])
-        ga, gb = got[i]
-        assert (ea.abpos, ea.bbpos, ea.aepos, ea.bepos, ea.diffs) == \
-               (ga.abpos, ga.bbpos, ga.aepos, ga.bepos, ga.diffs), f"case {i}"
-        assert list(ea.trace) == list(ga.trace), f"case {i} A trace"
-        assert list(eb.trace) == list(gb.trace), f"case {i} B trace"
-
-
-@pytest.mark.parametrize("packops,lanepack", [("0", False), ("1", False),
-                                              ("0", True)])
-def test_wave_pallas_interpret_matches_oracle(packops, lanepack,
-                                              monkeypatch):
-    """The actual pallas_call path in interpret mode (use_pallas=True on
-    CPU): catches Mosaic-kernel regressions off-TPU, where the default
-    engine silently takes the identical XLA route instead.  packops=1
-    additionally exercises the packed-operand plumbing; lanepack the
-    two-lanes-per-vreg-row kernel layout."""
-    from damapper_tpu.ops.wave_pallas import PallasWaveEngine
-
-    monkeypatch.setenv("DAMAPPER_WAVE_PACKOPS", packops)
-    seqmem, insts = make_cases(2000, ncases=2, err=0.15)
-    spec = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
-    eng = PallasWaveEngine(spec, band_cap=64, pool_cap=2048,
-                           use_pallas=True, interpret=True,
-                           lanepack=lanepack)
-    dev = jnp.asarray(seqmem)
-    got = eng.local_alignment_batch(dev, dev, seqmem, seqmem, insts)
-    for i, s in enumerate(insts):
-        a_np = seqmem[s["abase"]:s["abase"] + s["alen"]]
-        b_np = seqmem[s["bbase"]:s["bbase"] + s["blen"]]
-        ea, eb = wave.local_alignment(a_np, b_np, spec, s["diag"], s["diag"],
-                                      s["anti"], -1, -1, s["flags"])
-        ga, gb = got[i]
-        assert (ea.abpos, ea.bbpos, ea.aepos, ea.bepos, ea.diffs) == \
-               (ga.abpos, ga.bbpos, ga.aepos, ga.bepos, ga.diffs), f"case {i}"
-        assert list(ea.trace) == list(ga.trace), f"case {i} A trace"
-        assert list(eb.trace) == list(gb.trace), f"case {i} B trace"
-
-
-@pytest.mark.parametrize("seed,err,lanepack", [(0, 0.15, False),
-                                               (3, 0.30, False),
-                                               (0, 0.15, True),
-                                               (3, 0.30, True)])
-def test_wave_persistent_matches_oracle(seed, err, lanepack):
-    """The persistent-kernel driver (reload loop inside the kernel, lane
-    sequence windows resident in VMEM) through its XLA twin: must be
-    bit-identical to the oracle like the classic segment driver."""
-    from damapper_tpu.ops.wave_pallas import PallasWaveEngine
-
-    seqmem, insts = make_cases(1000 + seed, ncases=4, err=err)
-    spec = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
-    eng = PallasWaveEngine(spec, band_cap=64, pool_cap=2048,
-                           use_pallas=False, persistent=True,
-                           lanepack=lanepack)
-    dev = jnp.asarray(seqmem)
-    got = eng.local_alignment_batch(dev, dev, seqmem, seqmem, insts)
-    # genuine band/pool overflows fall back like the classic driver (1 lane
-    # at seed 0); a systematic WINDOW-placement bug would overflow them all
-    assert eng.n_fallback <= 1
-    for i, s in enumerate(insts):
-        a_np = seqmem[s["abase"]:s["abase"] + s["alen"]]
-        b_np = seqmem[s["bbase"]:s["bbase"] + s["blen"]]
-        ea, eb = wave.local_alignment(a_np, b_np, spec, s["diag"], s["diag"],
-                                      s["anti"], -1, -1, s["flags"])
-        ga, gb = got[i]
-        assert (ea.abpos, ea.bbpos, ea.aepos, ea.bepos, ea.diffs) == \
-               (ga.abpos, ga.bbpos, ga.aepos, ga.bepos, ga.diffs), f"case {i}"
-        assert list(ea.trace) == list(ga.trace), f"case {i} A trace"
-        assert list(eb.trace) == list(gb.trace), f"case {i} B trace"
-
-
-@pytest.mark.parametrize("packops,lanepack", [("0", False), ("1", False),
-                                              ("0", True)])
-def test_wave_persistent_interpret_matches_oracle(packops, lanepack,
-                                                  monkeypatch):
-    """The persistent pallas_call path in interpret mode: catches Mosaic
-    lowering regressions of the in-kernel reload machinery off-TPU."""
-    from damapper_tpu.ops.wave_pallas import PallasWaveEngine
-
-    monkeypatch.setenv("DAMAPPER_WAVE_PACKOPS", packops)
-    seqmem, insts = make_cases(2000, ncases=2, err=0.15)
-    spec = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
-    eng = PallasWaveEngine(spec, band_cap=64, pool_cap=2048,
-                           use_pallas=True, interpret=True, persistent=True,
-                           lanepack=lanepack)
-    dev = jnp.asarray(seqmem)
-    got = eng.local_alignment_batch(dev, dev, seqmem, seqmem, insts)
-    for i, s in enumerate(insts):
-        a_np = seqmem[s["abase"]:s["abase"] + s["alen"]]
-        b_np = seqmem[s["bbase"]:s["bbase"] + s["blen"]]
-        ea, eb = wave.local_alignment(a_np, b_np, spec, s["diag"], s["diag"],
-                                      s["anti"], -1, -1, s["flags"])
-        ga, gb = got[i]
-        assert (ea.abpos, ea.bbpos, ea.aepos, ea.bepos, ea.diffs) == \
-               (ga.abpos, ga.bbpos, ga.aepos, ga.bepos, ga.diffs), f"case {i}"
-        assert list(ea.trace) == list(ga.trace), f"case {i} A trace"
-        assert list(eb.trace) == list(gb.trace), f"case {i} B trace"
+    eng = KernelWaveEngine(spec, band_cap=64, pool_cap=2048, platform="cpu")
+    assert_matches_oracle(eng, seqmem, insts, spec)
 
 
 def test_tiny_round_host_route_identical():
@@ -253,51 +165,6 @@ def test_tiny_round_host_route_identical():
             assert list(d.trace) == list(h.trace), f"{i} {nm} trace"
 
 
-def test_persistent_winmiss_retries_on_classic_driver(monkeypatch):
-    """Persistent-mode overflow lanes (window misses) are retried on the
-    classic device driver before ever reaching the host oracle: force every
-    lane of the persistent engine to report overflow and check the classic
-    retry tier reproduces the classic engine's records with zero host
-    fallbacks."""
-    from damapper_tpu.ops import wave_jax
-    from damapper_tpu.ops.wave_pallas import PallasWaveEngine
-
-    seqmem, insts = make_cases(4242, ncases=10, err=0.15)
-    spec = new_align_spec(0.85, 100, [.25, .25, .25, .25], True)
-    dev = jnp.asarray(seqmem)
-
-    eng_p = PallasWaveEngine(spec, band_cap=64, pool_cap=2048,
-                             use_pallas=False, persistent=True)
-    eng_c = PallasWaveEngine(spec, band_cap=64, pool_cap=2048,
-                             use_pallas=False, persistent=False)
-    eng_p.host_min = eng_c.host_min = 0
-
-    orig = wave_jax.WaveEngine._run
-
-    def forced(self, which, *a, **kw):
-        res = orig(self, which, *a, **kw)
-        if self is eng_p:
-            res.overflow[:] = True      # every lane "misses the window"
-        return res
-
-    monkeypatch.setattr(wave_jax.WaveEngine, "_run", forced)
-    got_p = eng_p.local_alignment_batch(dev, dev, seqmem, seqmem, insts)
-    got_c = eng_c.local_alignment_batch(dev, dev, seqmem, seqmem, insts)
-
-    assert eng_p.n_winmiss >= len(insts)
-    # the classic tier salvages every forced "window miss"; only lanes the
-    # classic driver itself overflows (genuine band/pool overflow) may fall
-    # back to the host oracle — exactly as many as on the classic engine
-    assert eng_p.n_fallback == eng_c.n_fallback
-    for i in range(len(insts)):
-        pa, pb = got_p[i]
-        ca, cb = got_c[i]
-        for e, g in ((pa, ca), (pb, cb)):
-            assert (e.abpos, e.bbpos, e.aepos, e.bepos, e.diffs) == \
-                   (g.abpos, g.bbpos, g.aepos, g.bepos, g.diffs)
-            assert list(e.trace) == list(g.trace)
-
-
 def _clip_cases(seed, ncases):
     import pathlib
     import sys
@@ -306,15 +173,15 @@ def _clip_cases(seed, ncases):
     return clip_fuzz.make_clip_cases(seed, ncases)
 
 
-@pytest.mark.parametrize("engine", ["jax", "pallas_xla"])
+@pytest.mark.parametrize("engine", ["jax", "kernel_cpu"])
 def test_wave_boundary_clip_coast(engine):
     """Reverse waves that dive off the START of A and coast: a junk read
     head makes A-gap paths touch x == 0 (clip + REACH grab) while better
     off-boundary frontiers keep the wave alive, so the band re-clips over
     many waves.  Regression for two round-4 parity bugs (the 50k-read
     edge): (a) the post-clip band prune re-based pre-clip slot positions
-    onto the post-clip low, losing the diagonals just above aclip; (b) the
-    pallas drivers' loop conds skipped the deferred REACH rest resolution
+    onto the post-clip low, losing the diagonals just above aclip; (b) a
+    lockstep segment driver's loop cond skipped the deferred REACH rest resolution
     when the last live lane stalled on a clip, ending its wave early."""
     seqmem, all_insts = _clip_cases(7000, 117)
     # cases known to trip the two old bugs (band_cap=128) + controls
@@ -323,9 +190,9 @@ def test_wave_boundary_clip_coast(engine):
     if engine == "jax":
         eng = WaveEngine(spec, band_cap=128, pool_cap=2048)
     else:
-        from damapper_tpu.ops.wave_pallas import PallasWaveEngine
-        eng = PallasWaveEngine(spec, band_cap=128, pool_cap=2048,
-                               use_pallas=False)
+        from damapper_tpu.ops.wave_kernel import KernelWaveEngine
+        eng = KernelWaveEngine(spec, band_cap=128, pool_cap=2048,
+                               platform="cpu")
     eng.host_min = 0
     dev = jnp.asarray(seqmem)
     got = eng.local_alignment_batch(dev, dev, seqmem, seqmem, insts)

@@ -4,7 +4,10 @@ Generates lanes whose reverse wave walks off the START of the A sequence
 (abpos == 0) so the band clips at the A boundary and re-clips under REACH
 — the lane class where the 50k-read parity edge lives (STATUS.md).
 
-Usage: JAX_PLATFORMS=cpu python tools/clip_fuzz.py [nseeds] [--pallas]
+Usage: JAX_PLATFORMS=cpu python tools/clip_fuzz.py [nseeds] [--kernel]
+
+Without --kernel the engine is the XLA while-loop engine (ops/wave_jax.py);
+with it, the wave kernel (its host build on the CPU).
 """
 
 import os
@@ -12,12 +15,10 @@ import pathlib
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 from damapper_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
-enable_compile_cache(str(pathlib.Path(__file__).resolve().parent.parent
-                         / "tests" / "data" / "xla_cache"))
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -161,8 +162,8 @@ def main():
             print(f"seed {7000 + seed}: {bad} oracle-vs-reference mismatches")
         print(f"TOTAL: {total} mismatches")
         sys.exit(1 if total else 0)
-    if "--pallas" in sys.argv:
-        from damapper_tpu.ops.wave_pallas import PallasWaveEngine as E
+    if "--kernel" in sys.argv:
+        from damapper_tpu.ops.wave_kernel import KernelWaveEngine as E
     else:
         from damapper_tpu.ops.wave_jax import WaveEngine as E
     W = int(os.environ.get("FUZZ_W", 128))
